@@ -2,7 +2,7 @@
 """Laplace BEM driver: first/second-kind boundary integral equation on
 the unit sphere or a gmsh mesh.
 
-TPU-native counterpart of examples/LaplaceBEM.cpp (flags :100-160,
+JAX counterpart of examples/LaplaceBEM.cpp (flags :100-160,
 workflow :160-374): build panels, form the RHS by flipping the BC flags
 (one plan, no rebuild), solve with (F)GMRES + relaxation, report the
 solution error vs the analytic dphi/dn = 1 and the exterior potential
@@ -37,13 +37,14 @@ def main():
                     help="fit eps(p) on this plan and use it for the "
                     "relaxation schedule instead of the 2^-p model. "
                     "Helps when geometry makes 2^-p wrong (e.g. the "
-                    "anisotropic RBC, results/RELAX_TPU.md); on smooth "
+                    "anisotropic RBC, results/RBC.md); on smooth "
                     "spheres the default model is already right and "
                     "calibration only costs probe matvecs")
     ap.add_argument("-p_tiers", default="auto",
                     help="comma-separated orders quantising the relaxed "
-                    "schedule (the measured-fastest relaxed mode on "
-                    "TPU); 'auto' = 3,5,max_p; 'none' = the reference's "
+                    "schedule (every distinct order is a compiled "
+                    "solver tier); 'auto' = 3,5,max_p; 'none' = the "
+                    "reference's "
                     "continuous schedule")
     # ref scalar GMRES floors the relaxed order at 1 (GMRES.hpp:195);
     # the Stokes driver floors at SolverOptions::p_min instead
@@ -76,7 +77,9 @@ def main():
     if args.dtype == "float64":
         # float64 silently truncates to f32 unless x64 is enabled
         jax.config.update("jax_enable_x64", True)
+    from fmm_bem_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     from fmm_bem_tpu.bem.panels import make_panels, switch_bc
     from fmm_bem_tpu.bem.triangulation import load_msh, unit_sphere
     from fmm_bem_tpu.config import FMMConfig, SolverConfig

@@ -56,7 +56,9 @@ def main():
         import jax
 
         jax.config.update("jax_enable_x64", True)
+    from fmm_bem_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from fmm_bem_tpu.kernels.laplace import LaplaceKernel

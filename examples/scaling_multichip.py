@@ -14,8 +14,8 @@ Produces the BASELINE.md scaling evidence:
 
 On a CPU host the 8 virtual devices share the machine's cores, so
 wall-clock efficiencies are indicative (collectives + partitioning are
-fully exercised; compute parallelism is bounded by the host).  On a TPU
-slice the same harness produces the real numbers.
+fully exercised; compute parallelism is bounded by the host).  On a
+machine with several GPUs the same harness produces the real numbers.
 
 Usage:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -135,6 +135,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from fmm_bem_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from fmm_bem_tpu.parallel.let import LetPlan
 
     ndev_all = len(jax.devices())

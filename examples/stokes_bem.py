@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Stokes BEM driver: flow past a unit sphere or red blood cells.
 
-TPU-native counterpart of examples/StokesBEM.cpp (flags :146-207,
+JAX counterpart of examples/StokesBEM.cpp (flags :146-207,
 workflow :208-412): solve for the surface traction given the boundary
 velocity u = (1,0,0); check the RHS against the 4*pi double-layer
 identity and the drag force against Stokes law 6*pi*mu.
@@ -39,8 +39,9 @@ def main():
                     "the fitted eps(p) model instead of 2^-p")
     ap.add_argument("-p_tiers", default="auto",
                     help="comma-separated orders quantising the relaxed "
-                    "schedule (the measured-fastest relaxed mode on "
-                    "TPU); 'auto' = 3,5,p; 'none' = the reference's "
+                    "schedule (every distinct order is a compiled "
+                    "solver tier); 'auto' = 3,5,p; 'none' = the "
+                    "reference's "
                     "continuous schedule")
     ap.add_argument("-fgmres", action="store_true")
     # inner-outer FMGMRES: inner relaxed GMRES on the same plan as the
@@ -79,7 +80,9 @@ def main():
     if args.dtype == "float64":
         # float64 silently truncates to f32 unless x64 is enabled
         jax.config.update("jax_enable_x64", True)
+    from fmm_bem_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     from fmm_bem_tpu.bem.panels import make_panels
     from fmm_bem_tpu.bem.triangulation import (
         load_vert_face,

@@ -49,7 +49,9 @@ def main():
     if args.dtype == "float64":
         # float64 silently truncates to f32 unless x64 is enabled
         jax.config.update("jax_enable_x64", True)
+    from fmm_bem_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     from fmm_bem_tpu.bem.panels import make_panels
     from fmm_bem_tpu.bem.triangulation import unit_sphere
     from fmm_bem_tpu.config import FMMConfig, SolverConfig

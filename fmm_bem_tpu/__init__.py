@@ -1,6 +1,6 @@
-"""fmm_bem_tpu — a TPU-native fast-multipole boundary-element framework.
+"""fmm_bem_tpu — a fast-multipole boundary-element framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 barbagroup/fmm-bem-relaxed (inexact-Krylov FMM-BEM, arXiv:1506.05957):
 
 - Morton-ordered adaptive octrees over points or triangular BEM panels
@@ -11,24 +11,20 @@ barbagroup/fmm-bem-relaxed (inexact-Krylov FMM-BEM, arXiv:1506.05957):
   (ref: kernel/*.hpp)
 - GMRES / FGMRES with per-iteration relaxation of the multipole order p
   (ref: examples/BEM/GMRES.hpp, SolverOptions.hpp)
-- multi-chip spatial decomposition over jax.sharding meshes.
+- multi-device spatial decomposition over jax.sharding meshes.
 
 Unlike the reference (header-only C++/OpenMP), everything on the compute
 path here is static-shape array code: trees and interaction lists are
 built once on the host, and the matvec replays them as batched
-matmuls/segment-sums on the TPU.
+matmuls/segment-sums on the accelerator.
 """
 
 import jax as _jax
 
-# TPU matrix-matrix products default to single-pass bf16 inputs
-# (~2e-3 relative error) — catastrophic for an FMM whose M2M/M2L/L2L
-# translation chain and Krylov orthogonalisation are matmuls: measured
-# 6.6e-4 far-field error and a 38-vs-2 GMRES iteration gap vs the CPU
-# backend at 131k panels.  "highest" restores true-f32 (6-pass bf16,
-# 7e-8) at no measurable cost: every matmul on the matvec path is
-# bandwidth-bound at FMM expansion widths.  Matrix-vector products ride
-# the VPU at full f32 regardless, which is why this only shows on TPU.
+# Full float32 matrix products: the M2M/M2L/L2L translation chain and
+# the Krylov orthogonalisation are matmuls, and a reduced-precision
+# default (bf16 passes, or TF32 on NVIDIA tensor cores, ~1e-3 relative)
+# would put that error into every matvec and slow GMRES convergence.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from fmm_bem_tpu.config import FMMConfig, SolverConfig

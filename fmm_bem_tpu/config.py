@@ -1,6 +1,6 @@
 """Runtime configuration for the FMM executor and the Krylov solvers.
 
-TPU-native re-design of the reference's option objects:
+JAX re-design of the reference's option objects:
 - ``FMMConfig``   mirrors include/FMMOptions.hpp (MAC theta, NCRIT,
   FMM-vs-treecode evaluator choice) plus array-framework knobs (dtype,
   tile sizes) the reference has no equivalent of.
@@ -55,9 +55,8 @@ class FMMConfig:
     print_tree: bool = False
     #: rebuild the tree once with a smaller ncrit when the max/mean
     #: leaf-occupancy ratio exceeds 2 (leaf tiles pad to the MAX, so
-    #: one full leaf against a low mean taxes every P2P tile — a
-    #: measured 2.2x matvec cliff at 500k points).  The reference
-    #: ships tests/ncrit_search.cpp for manual tuning instead.
+    #: one full leaf against a low mean taxes every P2P tile).  The
+    #: reference ships tests/ncrit_search.cpp for manual tuning instead.
     auto_ncrit: bool = True
     evaluator: Evaluator = Evaluator.FMM
     #: maximum octree depth (ref MortonCoder: 10 levels, Octree.hpp:87-89)
@@ -65,37 +64,38 @@ class FMMConfig:
     #: expansion order the device buffers are allocated at; ``set_p``-style
     #: relaxation selects p <= max_p per matvec (ref LaplaceSpherical.hpp:119-128)
     max_p: int = 16
-    #: element dtype for device arrays ("float32" on TPU, "float64" for
-    #: CPU-based accuracy tests)
+    #: element dtype for device arrays ("float32" on the accelerator,
+    #: "float64" for CPU-based accuracy tests)
     dtype: str = "float32"
     #: pad M2L translation-class segments to multiples of this many pairs
-    #: so each tile is a single dense matmul on the MXU.  32 balances
-    #: per-class padding waste (most classes are small: p50 class size
-    #: ~4 pairs on the 131k-panel sphere) against matmul row occupancy
-    #: (ncomp folds into rows, so a BEM tile is still [64, W])
+    #: so each tile is a single dense matmul.  32 balances per-class
+    #: padding waste (most classes are small: p50 class size ~4 pairs
+    #: on the 131k-panel sphere) against matmul row occupancy (ncomp
+    #: folds into rows, so a BEM tile is still [64, W]); not yet tuned
+    #: on the GPU (ROADMAP)
     m2l_tile: int = 32
     #: group same-level M2L pairs by (source-parent, target-parent)
     #: FAMILY: one dense [8W, 8W] class operator per quantised parent
     #: offset serves all the family's child pairs, the expansion gather
     #: moves 8x-wider rows (sibling-contiguous family tiles) and ~16x
-    #: fewer of them, and the matmul is real MXU food.  See
+    #: fewer of them, and the matmuls are dense.  See
     #: executor/plan._build_m2l_families.
     m2l_family: bool = True
     #: chunk sizes bounding transient memory of gather-heavy ops
     p2p_chunk: int = 1024
-    #: evaluate the precomputed near field as bucketed dense leaf
-    #: panels (Pallas kernel on TPU) instead of a COO gather/scatter —
-    #: the TPU-native form of the reference's cached CSR
+    #: evaluate the precomputed near field as dense leaf panels
+    #: (ops/near_panel.py) instead of a COO gather/scatter — the
+    #: array form of the reference's cached CSR
     #: (EvalInteractionLazySparse.hpp:112)
     near_panel: bool = True
     #: BEM near-field storage: "cached" streams the precomputed panel
     #: store (p-independent, the reference's EvalInteractionLazySparse
-    #: default — fastest, but ~1.3 GB / 131k panels caps single-chip N
-    #: near ~1M); "otf" recomputes the regular K-point quadrature
+    #: default — fastest, but ~1.3 GB per 131k panels bounds N by
+    #: device memory); "otf" recomputes the regular K-point quadrature
     #: inside the matvec (the reference's plain lazy evaluator,
     #: EvalInteractionLazy.hpp:239-252) and caches only the O(N)
-    #: near-singular corrections as deltas — near store drops ~20x,
-    #: enabling multi-million-panel single-chip solves
+    #: near-singular corrections as deltas — the near store drops
+    #: ~20x, at the price of recomputing the quadrature every matvec
     near_mode: str = "cached"
     #: pairs per on-the-fly near chunk (bounds the transient geometry
     #: bytes: ~chunk * KT*KS*K * 16 B)
@@ -154,19 +154,16 @@ class SolverConfig:
     eps_c: Optional[float] = None
     eps_gamma: Optional[float] = None
     #: quantise the relaxed schedule UP to these orders (e.g. (3, 5,
-    #: 10)).  TPU-motivated: the measured matvec cost is nearly flat in
-    #: p (the cached near field is p-independent and low-p M2L is
-    #: latency-bound — 1.09 ms at p=1 vs 1.88 ms at p=10 on 32k
-    #: panels), so paying one or two extra orders costs almost nothing,
-    #: while every DISTINCT order in the schedule is a separate
-    #: compiled solver tier and a host<->device switch.  None keeps the
+    #: 10)).  The cached near field is p-independent, so one or two
+    #: extra orders cost little, while every DISTINCT order in the
+    #: schedule is a separate compiled solver tier.  None keeps the
     #: reference's fully continuous schedule (SolverOptions.hpp:25-38).
     p_tiers: Optional[tuple] = None
     #: smallest order the calibration actually probed.  The fitted
     #: gamma is only evidence INSIDE the probed range — extrapolating
-    #: it below cost 17 stalled p=1 iterations on the 32k sphere
-    #: (results/RELAX_TPU.md round 3), because the fit over p >= 4
-    #: underestimates the true p=1 truncation error.  Calibrated
+    #: it below cost 17 stalled p=1 iterations on the 32k sphere,
+    #: because the fit over p >= 4 underestimates the true p=1
+    #: truncation error.  Calibrated
     #: predictions are clamped to >= this order; None (uncalibrated
     #: 2^-p model) keeps the reference's unfloored schedule.
     eps_p_lo: Optional[int] = None
@@ -258,13 +255,11 @@ class SolverConfig:
 
 
 def default_p_tiers(max_p: int) -> tuple:
-    """Recommended relaxed-schedule quantisation for TPU runs.
+    """Default relaxed-schedule quantisation of the example drivers.
 
-    The measured-fastest relaxed mode on TPU (results/RELAX_TPU.md:
-    0.62 s tiers vs 0.91 s continuous on the 32k first-kind sphere):
-    the matvec cost is nearly flat in p (cached near field is
-    p-independent), so paying an order or two extra costs almost
-    nothing, while every DISTINCT order is a separate compiled tier.
-    Three tiers ending at ``max_p`` cover the whole Bouras schedule.
+    The cached near field is p-independent, so paying an order or two
+    extra costs little, while every DISTINCT order is a separate
+    compiled tier.  Three tiers ending at ``max_p`` cover the whole
+    Bouras schedule.  Not yet tuned on the GPU (ROADMAP).
     """
     return tuple(sorted({t for t in (3, 5) if t < max_p} | {max_p}))

@@ -1,7 +1,7 @@
 """Cartesian Taylor expansions for the Yukawa (screened-Laplace) and
 Laplace kernels.
 
-TPU-native re-design of kernel/YukawaCartesian.hpp /
+JAX re-design of kernel/YukawaCartesian.hpp /
 LaplaceCartesian.hpp: multipoles are scaled moments
 M_a = sum_s q (c - x_s)^a / a!, locals are Taylor derivative
 coefficients, and every translation is a dense matrix over the

@@ -8,14 +8,14 @@ evalMultipole/evalLocal recurrences :455-524, P2M :186-235, M2M
 
 * Harmonic evaluation uses a **Cartesian two-term recurrence** (no trig,
   no division by sin(theta)), vectorised over bodies — the natural form
-  for the TPU's VPU and for autodiff (forces are obtained with
+  for elementwise array code and for autodiff (forces are obtained with
   ``jax.grad`` instead of the reference's hand-coded YnmTheta arrays).
 
 * M2M / M2L / L2L are **dense real translation matrices** acting on the
   real/imaginary-stacked coefficient vector.  The complex operators are
   only real-linear (they mix ``M`` and ``conj(M)``), so a complex matrix
   cannot represent them; the ``[2T, 2T]`` real form can, and it turns
-  every translation into MXU-friendly matmuls.
+  every translation into a dense real matmul.
 
 * Expansions are **scale-normalised per box** (multipoles divided by
   sigma^n, locals multiplied by sigma^j, sigma = box half-side).  This

@@ -1,6 +1,6 @@
 """Laplace point kernel: K(t,s) = 1/|s-t|, force (s-t)/|s-t|^3.
 
-TPU-native counterpart of kernel/LaplaceSpherical.hpp.  Device-side
+JAX counterpart of kernel/LaplaceSpherical.hpp.  Device-side
 operators are batched jnp functions over bodies; translation matrices
 come from :mod:`fmm_bem_tpu.kernels.harmonics`.  Forces are obtained by
 automatic differentiation of the (scalar) potential accumulated from the
@@ -27,8 +27,9 @@ def eval_regular(d, p):
     """Regular solid harmonics R_n^m(d), m >= 0, flat (n,m) index.
 
     Batched over leading dims of ``d`` [..., 3]; returns a REAL pair
-    (re [..., T], im [..., T]) — the TPU backend has no native complex
-    support, so the Cartesian two-term recurrence (no trig, no
+    (re [..., T], im [..., T]) — real arrays throughout keep every
+    accelerator path and the real translation matrices in one dtype,
+    so the Cartesian two-term recurrence (no trig, no
     sin(theta) division — cf. the reference's polar recurrence,
     LaplaceSpherical.hpp:455-488) runs on explicit (re, im) planes.
     """
@@ -135,10 +136,6 @@ class LaplaceKernel:
     scale_invariant = True
     #: self-interaction exclusion threshold on R^2 (ref :158)
     eps2 = 1e-8
-    #: the P2P pass may run as the fused super-block Pallas kernel
-    #: (ops/p2p_tile.py — pot + difference-form force, this kernel's
-    #: exact math); other point kernels keep the chunked-vmap path
-    pallas_point_tile = True
 
     # ----- expansion layout -----
     def width(self, p):
@@ -231,8 +228,8 @@ class LaplaceKernel:
         LaplaceSpherical.hpp:153-162) as one broadcast block.
 
         Layout note: every intermediate is a [Bt, Bs] plane — a
-        [Bt, Bs, 3] difference tensor would put the coordinate axis on
-        the minor (lane) dimension, which TPU tiling pads 3 -> 128.
+        [Bt, Bs, 3] difference tensor would put the 3-wide coordinate
+        axis in the minor dimension, which tiled device layouts pad.
         The force keeps the difference form sum_s w*(s_d - t_d)
         per component (the algebraically equivalent
         (w @ s_d) - t_d*sum(w) cancels two O(|x|) terms and costs ~3

@@ -1,6 +1,6 @@
 """Laplace BEM panel kernel.
 
-TPU-native counterpart of kernel/LaplaceSphericalBEM.hpp: the expansion
+JAX counterpart of kernel/LaplaceSphericalBEM.hpp: the expansion
 carries two components per box — a single-layer (G) part built from
 panel quadrature monopoles and a double-layer (dGdn) part built from
 quadrature dipoles (ref P2M :307-352) — and every evaluation selects
@@ -186,9 +186,6 @@ class LaplaceBEMKernel:
         return np.where(np.asarray(bc_rows) == 0.0, vals[:, 0], vals[:, 1])
 
     kappa = 0.0  # Yukawa subclassing hook for the shared block builder
-    #: the OTF near product may run as the fused super-block Pallas
-    #: kernel (ops/otf_tile.py — this class's near_block_device math)
-    pallas_otf_tile = True
 
     def near_block_device(self, tf_rows, sf_rows, tmask, smask):
         """Regular K-point quadrature interaction block of one leaf

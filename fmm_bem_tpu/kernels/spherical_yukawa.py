@@ -1,7 +1,7 @@
 """Spherical-harmonic Yukawa kernel: modified spherical Bessel
 expansions with projection-built translation operators.
 
-TPU-native counterpart of kernel/YukawaSpherical.hpp.  The reference
+JAX counterpart of kernel/YukawaSpherical.hpp.  The reference
 expands e^{-kappa r}/r in products of modified spherical Bessel
 functions and spherical harmonics (its P2M :149-176 evaluates
 i_n(kappa rho) Y_nm via recurrences :220-333) and translates with

@@ -1,7 +1,7 @@
 """Stokes point kernels: stokeslet (single layer) and stresslet
 (double layer) velocities.
 
-TPU-native counterpart of kernel/StokesSpherical.hpp — the Tornberg &
+JAX counterpart of kernel/StokesSpherical.hpp — the Tornberg &
 Greengard decomposition: a Stokes velocity field is assembled from FOUR
 harmonic (Laplace) expansions, components 0-2 carrying the force/charge
 vector and component 3 carrying f.x (ref P2M :123-146).  Evaluation

@@ -1,7 +1,7 @@
 """Stokes BEM panel kernel: single-layer (stokeslet) and double-layer
 (stresslet) velocity integrals over triangular panels.
 
-TPU-native counterpart of kernel/StokesSphericalBEM.hpp: the expansion
+JAX counterpart of kernel/StokesSphericalBEM.hpp: the expansion
 carries TWO 4-component Tornberg-Greengard sets per box (ncomp = 8) —
 components 0-3 from VELOCITY panels (stokeslet quadrature monopoles, ref
 P2M :416-431) and components 4-7 from TRACTION panels (stresslet

@@ -1,6 +1,6 @@
 """Yukawa BEM panel kernel (screened-Laplace boundary integrals).
 
-TPU-native counterpart of kernel/YukawaCartesianBEM.hpp: a two-component
+JAX counterpart of kernel/YukawaCartesianBEM.hpp: a two-component
 Cartesian-Taylor expansion per box — component 0 from quadrature
 monopoles of int G, component 1 from quadrature dipoles of int dG/dn
 (ref P2M :240-297) — selected at evaluation by the panel BC exactly like

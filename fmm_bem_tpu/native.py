@@ -1,18 +1,23 @@
-"""ctypes bindings to the native host runtime (native/libfmm_native.so).
+"""ctypes bindings to the native host runtime (native/fmm_native.cpp).
 
 The C++ library accelerates the plan-build hot paths — octree
 construction, dual-tree MAC traversal, near-field COO expansion — with
 semantics identical to the numpy fallbacks (`fmm_bem_tpu.tree.octree`,
-`fmm_bem_tpu.traversal.lists`).  If the .so is missing it is compiled
-on demand with g++; if that fails the callers silently use the numpy
-paths.
+`fmm_bem_tpu.traversal.lists`).  It is compiled with g++ on first use
+into ``native/build/``, under a name keyed by a hash of the source, the
+flags and the machine architecture, so a stale or foreign build is
+never loaded.  ``get_lib(required=True)`` raises if it cannot be built
+or loaded; otherwise callers fall back to numpy with a warning.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import warnings
 
 import numpy as np
 
@@ -20,8 +25,10 @@ _LIB = None
 _TRIED = False
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SO = os.path.join(_HERE, "native", "libfmm_native.so")
 _SRC = os.path.join(_HERE, "native", "fmm_native.cpp")
+#: portable flags: no -march=native, so the library runs on any host
+#: of the same architecture
+_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-fopenmp", "-shared")
 
 
 def _i32(a):
@@ -36,32 +43,58 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def get_lib():
-    """Load (building if needed) the native library, or None."""
+def library_path():
+    """Where the library for the current source, flags and machine
+    architecture lives."""
+    with open(_SRC, "rb") as f:
+        key = hashlib.sha256(f.read())
+    key.update(" ".join(_FLAGS + (platform.machine(),)).encode())
+    return os.path.join(
+        _HERE, "native", "build", f"libfmm_native-{key.hexdigest()[:16]}.so"
+    )
+
+
+def build():
+    """Compile the library unless this source's build exists; returns
+    its path.  Raises ``subprocess.CalledProcessError`` (with g++'s
+    output) or ``OSError`` on failure."""
+    so = library_path()
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        # build under a private name, then rename: concurrent test
+        # workers never load a half-written file
+        tmp = f"{so}.{os.getpid()}.tmp"
+        subprocess.run(
+            ["g++", *_FLAGS, "-o", tmp, _SRC],
+            check=True, capture_output=True, text=True, timeout=300,
+        )
+        os.replace(tmp, so)
+    return so
+
+
+def get_lib(required=False):
+    """Load (building if needed) the native library.  Returns None when
+    it is unavailable, or raises if ``required``."""
     global _LIB, _TRIED
-    if _LIB is not None or _TRIED:
+    if _LIB is not None or (_TRIED and not required):
         return _LIB
     _TRIED = True
-    if not os.path.exists(_SO) and os.path.exists(_SRC):
-        try:
-            subprocess.run(
-                ["g++", "-O3", "-fPIC", "-std=c++17", "-fopenmp", "-shared", "-o", _SO, _SRC],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            return None
     try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+        lib = ctypes.CDLL(build())
+    except (OSError, subprocess.SubprocessError) as e:
+        if required:
+            raise
+        warnings.warn(
+            f"native library unavailable ({type(e).__name__}: {e}); "
+            "plan build falls back to numpy",
+            RuntimeWarning,
+        )
         return None
     lib.fmm_tree_build.restype = ctypes.c_void_p
     lib.fmm_tree_num_boxes.restype = ctypes.c_int64
     lib.fmm_traverse.restype = ctypes.c_void_p
     lib.fmm_near_coo_size.restype = ctypes.c_int64
-    if hasattr(lib, "fmm_near_candidates"):
-        lib.fmm_near_candidates.restype = ctypes.c_int64
+    lib.fmm_near_candidates.restype = ctypes.c_int64
     _LIB = lib
     return _LIB
 
@@ -172,7 +205,7 @@ def near_laplace(tgt_fields, src_fields, t_idx, s_idx, fine_K, kappa):
     """Native Laplace/Yukawa BEM near-entry assembly -> (G, dGdn) or
     None when the library is unavailable."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "fmm_near_laplace"):
+    if lib is None:
         return None
     from fmm_bem_tpu.bem.quadrature import get_rule
 
@@ -219,7 +252,7 @@ def panel_fill(rows, cols, vals3, t_slot, s_slot, t_pos, s_pos,
     """Native near-panel block fill (see fmm_panel_fill); returns False
     when the library is unavailable so callers use the numpy fallback."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "fmm_panel_fill"):
+    if lib is None:
         return False
     rows = _i32(rows)
     cols = _i32(cols)
@@ -255,7 +288,7 @@ def near_candidates(pairs, src_tree, tgt_tree, t_xyz, s_xyz, s_area):
     """COO entries triggering the near-singular branch (see
     fmm_near_candidates) -> (rows, cols), or None without the library."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "fmm_near_candidates"):
+    if lib is None:
         return None
     pairs = _i32(pairs)
     sc = _i32(src_tree.box_body_count)

@@ -1,11 +1,9 @@
 """Scatter-free segmented reduction: bucketed gather-and-sum.
 
-TPU scatter-adds (what ``jax.ops.segment_sum`` lowers to) process one
-element at a time; replaying the FMM's M2L accumulation through one was
-measured at ~1e9 elements/s — 10x the cost of the matmuls it feeds.
-The TPU-native form inverts the data flow: every OUTPUT row gathers the
-input rows that map to it (row gathers are DMA-friendly) and reduces
-them densely.  Variable fan-in is handled exactly like the near-field
+``jax.ops.segment_sum`` lowers to a scatter-add, which serialises or
+needs atomics where many inputs hit one output row.  This form inverts
+the data flow: every OUTPUT row gathers the input rows that map to it
+(whole-row gathers) and reduces them densely, deterministically.  Variable fan-in is handled exactly like the near-field
 panels: output rows are bucketed by fan-in, each bucket padded to its
 edge, and dummy slots point at an appended zero row.
 
@@ -23,7 +21,8 @@ import numpy as np
 
 #: finer steps in the FMM's typical fan-in range (tens of source boxes
 #: per target) bound padding waste at ~15% instead of ~50%; every
-#: gathered pad row is a wasted 55-GB/s-class random HBM access
+#: gathered pad row is a wasted random device-memory access.  Not yet
+#: retuned on the GPU (ROADMAP)
 DEFAULT_EDGES = (
     1, 2, 4, 8, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80, 96, 128,
     192, 256, 384, 512, 1024,
@@ -45,8 +44,7 @@ class BucketSum:
     def device(self):
         # clamp dummies to a real row + a 0/1 mask instead of an
         # appended zero row: a concat-with-zero-row INSIDE the jit
-        # makes XLA fuse a per-row select into the gather, measured
-        # ~5x slower than gathering from a plain materialised table
+        # makes XLA fuse a per-row select into the gather
         return {
             "idx": tuple(
                 jnp.asarray(np.minimum(i, max(self.nin - 1, 0)))
@@ -108,8 +106,8 @@ def bucket_sum_apply(dev, x):
     The input is materialised behind an optimization_barrier first:
     without it XLA fuses the row gathers into x's producer (e.g. the
     M2L tile einsum, whose output lives in a [ntile, TS*ncomp, W]
-    layout where one logical row is TWO strided sub-rows) — measured
-    ~5x slower than gathering from a plain [P, cW] table."""
+    layout where one logical row is TWO strided sub-rows) instead of
+    gathering from a plain [P, cW] table."""
     x = jax.lax.optimization_barrier(x)
     parts = []
     for idx, mask in zip(dev["idx"], dev["mask"]):

@@ -1,27 +1,23 @@
-"""Near-field leaf-panel matvec (the TPU-native EvalInteractionLazySparse).
+"""Near-field leaf-panel matvec (the array form of the reference's
+EvalInteractionLazySparse).
 
 The reference caches the singular/near-singular panel integrals in a CSR
 matrix and replays ``results += A @ charges`` every GMRES iteration
-(EvalInteractionLazySparse.hpp:112,134-150).  A COO/CSR replay is
-pathological on TPU — per-entry gather + scatter-add runs at scalar
-speed (measured ~40x slower than streaming the same bytes densely).
+(EvalInteractionLazySparse.hpp:112,134-150).  A COO/CSR replay is a
+per-entry gather + scatter-add; streaming the same values as dense
+blocks touches each byte once, in order.
 
-TPU-native layout (round 4, uniform chunks): every target leaf's near
-field is a row of dense interaction blocks against its m near-field
-source leaves.  Those rows are packed into fixed-width CHUNKS of m0
-source leaves each —
+Layout (uniform chunks): every target leaf's near field is a row of
+dense interaction blocks against its m near-field source leaves.  Those
+rows are packed into fixed-width CHUNKS of m0 source leaves each —
 
     A  [C, KT*rdim, m0 * KS*cdim]      (C = sum_l ceil(m_l / m0))
 
-so the whole near field is ONE uniformly-shaped batched matvec: a
-single Pallas kernel streams the panel tiles HBM->VMEM with a
-broadcast-multiply + lane reduction (the matvec is bandwidth-bound:
-the panel bytes are touched exactly once), and a sorted segment-sum
-combines each leaf's chunks.  Earlier rounds bucketed leaves by m into
-~10 Pallas calls of different widths; the per-call launches, the
-per-bucket charge gathers, and the giant unpipelined blocks of the
-wide buckets held the stream at ~60% of HBM peak.  One kernel with one
-modest block shape pipelines uniformly.
+sorted by target leaf, so the whole near field is ONE uniformly-shaped
+batched matvec over a bandwidth-bound store.  ``panel_matvec`` runs it
+as a Pallas kernel on a GPU (one program per target leaf walks its
+chunk range, so each leaf's result is written once) and as plain XLA
+(charge gather, batched contraction, sorted segment-sum) elsewhere.
 
 ``m0`` is chosen per plan to minimise padded bytes (see choose_m0).
 
@@ -38,10 +34,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-#: legacy alias kept for external probes/tests; the kernel's row-tile
-#: size is now chosen per shape (see _block_rows)
-LEAF_TILE = 8
-
 #: candidate chunk widths (source leaves per chunk)
 M0_CANDIDATES = (2, 4, 6, 8, 12, 16, 24, 32)
 
@@ -55,8 +47,8 @@ def choose_m0(m_per, KSc, candidates=M0_CANDIDATES):
     """Chunk width minimising total padded panel bytes.
 
     Cost of width m0: sum_l ceil(m_l/m0) chunks, each storing
-    roundup(m0*KSc, 128) lanes (the f32 lane tile).  Ties prefer the
-    larger width (fewer rows -> fewer segment-sum terms).
+    roundup(m0*KSc, 128) columns.  Ties prefer the larger width (fewer
+    chunks to walk).
     """
     m_per = np.asarray(m_per)
     m_per = m_per[m_per > 0]
@@ -74,8 +66,9 @@ def choose_m0(m_per, KSc, candidates=M0_CANDIDATES):
 
 
 def _block_rows(KTr, Lb, target_bytes=2 << 20):
-    """Rows per Pallas grid step: ~2 MB blocks pipeline smoothly
-    (double-buffered) without pressuring VMEM."""
+    """Chunk-count granule: the store is padded to a multiple of this
+    many chunks (~2 MB of panels).  Only the padding depends on it;
+    not yet retuned on the GPU (ROADMAP)."""
     row_bytes = KTr * Lb * 4
     bl = max(1, target_bytes // max(row_bytes, 1))
     # power of two, capped
@@ -95,7 +88,6 @@ class NearPanels:
     chunk_tgt: np.ndarray
     nl_t: int
     m0: int
-    block_rows: int
     npairs: int
     rdim: int
     cdim: int
@@ -271,7 +263,6 @@ def build_near_panels(
         chunk_tgt=chunk_tgt,
         nl_t=nl_t,
         m0=m0,
-        block_rows=bl,
         npairs=npairs,
         rdim=rdim,
         cdim=cdim,
@@ -509,7 +500,6 @@ def build_near_panels_on_device(
         chunk_tgt=chunk_tgt,
         nl_t=nl_t,
         m0=m0,
-        block_rows=bl,
         npairs=npairs,
         rdim=rdim,
         cdim=cdim,
@@ -524,152 +514,92 @@ def build_near_panels_on_device(
     return dev, meta
 
 
-def _contract_einsum(A, x):
-    return jnp.einsum("lts,ls->lt", A, x)
+#: register budget of one kernel program: rows x lanes of the panel tile
+#: it holds (64 x 128 f32 at the benchmark shapes)
+_TILE_ELEMS = 8192
 
 
-#: VMEM budget for the fully-fused kernel's resident buffers (charge
-#: table + leaf accumulator + double-buffered panel blocks); beyond it
-#: the two-stage path (gathered charges + external segment-sum) runs
-_FUSED_VMEM_LIMIT = 12 << 20
-#: unroll guard: the in-kernel gather/reduce loops emit bl*(m0+1) ops
-_FUSED_MAX_UNROLL = 640
+def _contract_triton(A, pidx, chunk_tgt, ql, nl_t, interpret=False):
+    """The whole near field as one Pallas kernel (Triton route).
 
-
-def _contract_pallas_fused(A, pidx, chunk_tgt, ql, meta, bl):
-    """One Pallas kernel for the whole near field: per chunk row,
-    gather the m0 source-leaf charge tiles from a VMEM-resident charge
-    table (SMEM indices), contract against the streamed panel block,
-    and accumulate into a VMEM leaf-tile result — charges and results
-    never round-trip HBM, so the kernel runs at the panel stream's
-    speed (measured 95.7% of v5e HBM peak at 131k panels vs 71% for
-    the three-stage pipeline it replaces).
-
-    TPU grid steps are sequential on a core, so the read-modify-write
-    accumulation across blocks is race-free by construction.
+    Chunks are leaf-sorted, so program (l, rt) owns rows rt*R.. of
+    target leaf l: it walks the leaf's contiguous chunk range, gathers
+    each chunk's m0 source-leaf charge tiles itself, contracts them
+    against the streamed panel tile in registers and stores its rows
+    once — no gathered-charge or per-chunk result round trip through
+    device memory, no atomics, no cross-program carry.
     """
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
-    C, KTr, Lb = A.shape
+    KTr = A.shape[1]
     m0 = pidx.shape[1]
-    nq, KSc = ql.shape
-    nqp = -(-(nq + 1) // 8) * 8
-    NT = -(-(meta.nl_t + 1) // 8) * 8
+    KSc = ql.shape[1]
     mS = m0 * KSc
+    L = pl.next_power_of_2(mS)
+    R = min(pl.next_power_of_2(KTr), max(1, _TILE_ELEMS // L))
+    ptr = jnp.searchsorted(
+        chunk_tgt, jnp.arange(nl_t + 1, dtype=chunk_tgt.dtype)
+    ).astype(jnp.int32)
+    # appended zero tile: the dummy source leaf (pidx == len(ql))
+    xq = jnp.concatenate([ql, jnp.zeros((1, KSc), ql.dtype)], axis=0)
 
-    def kern(pidx_ref, ct_ref, a_ref, xq_ref, o_ref):
-        i = pl.program_id(0)
+    def kern(ptr_ref, pidx_ref, a_ref, xq_ref, o_ref):
+        leaf = pl.program_id(0)
+        lane = jnp.arange(L)
+        lane_ok = lane < mS
+        grp = jnp.minimum(lane // KSc, m0 - 1)
+        col = lane % KSc
+        rows = pl.program_id(1) * R + jnp.arange(R)
+        row_ok = rows < KTr
+        a_ok = row_ok[:, None] & lane_ok[None, :]
 
-        @pl.when(i == 0)
-        def _():
-            o_ref[:] = jnp.zeros_like(o_ref)
-
-        parts = []
-        for r in range(bl):
-            row = [
-                xq_ref[pl.ds(pidx_ref[r, j], 1), :] for j in range(m0)
-            ]
-            parts.append(
-                row[0] if m0 == 1 else jnp.concatenate(row, axis=1)
+        def body(c, acc):
+            src = plgpu.load(pidx_ref.at[c, grp])
+            x = plgpu.load(xq_ref.at[src, col], mask=lane_ok, other=0.0)
+            a = plgpu.load(
+                a_ref.at[c, rows[:, None], lane[None, :]],
+                mask=a_ok, other=0.0,
             )
-        xb = jnp.concatenate(parts, axis=0)  # [bl, m0*KSc]
-        out = jnp.sum(a_ref[:, :, :mS] * xb[:, None, :], axis=2)
-        for r in range(bl):
-            o_ref[pl.ds(ct_ref[r, 0], 1), :] += out[r: r + 1, :]
+            return acc + jnp.sum(a * x[None, :], axis=1)
 
-    xq = jnp.concatenate(
-        [ql, jnp.zeros((nqp - nq, KSc), ql.dtype)], axis=0
-    )
-    out = pl.pallas_call(
-        kern,
-        grid=(C // bl,),
-        in_specs=[
-            pl.BlockSpec((bl, m0), lambda i: (i, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((bl, 1), lambda i: (i, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((bl, KTr, Lb), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((nqp, KSc), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (NT, KTr), lambda i: (0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((NT, KTr), A.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * C * KTr * Lb,
-            bytes_accessed=A.size * A.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(pidx, chunk_tgt.reshape(-1, 1), A, xq)
-    return out[: meta.nl_t]
-
-
-def _fused_fits(A, ql, meta, bl):
-    """Can the fused kernel's resident buffers live in VMEM, and is
-    the unrolled gather/reduce loop a sane size?"""
-    C, KTr, Lb = A.shape
-    m0 = meta.m0
-    nq, KSc = ql.shape
-    nqp = -(-(nq + 1) // 8) * 8
-    NT = -(-(meta.nl_t + 1) // 8) * 8
-    it = A.dtype.itemsize
-    resident = (NT * KTr + nqp * KSc + 2 * bl * KTr * Lb) * it
-    return (
-        resident <= _FUSED_VMEM_LIMIT
-        and bl * (m0 + 1) <= _FUSED_MAX_UNROLL
-    )
-
-
-def _contract_pallas(A, x, bl):
-    """out[c] = A[c] @ x[c] streamed in bl-chunk row tiles."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    C, KTr, L = A.shape
-
-    def kern(a_ref, x_ref, o_ref):
-        o_ref[:] = jnp.sum(a_ref[:] * x_ref[:][:, None, :], axis=2)
+        acc = jax.lax.fori_loop(
+            ptr_ref[leaf], ptr_ref[leaf + 1], body,
+            jnp.zeros((R,), A.dtype),
+        )
+        plgpu.store(o_ref.at[leaf, rows], acc, mask=row_ok)
 
     return pl.pallas_call(
         kern,
-        grid=(C // bl,),
-        in_specs=[
-            pl.BlockSpec(
-                (bl, KTr, L), lambda i: (i, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (bl, L), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (bl, KTr), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((C, KTr), A.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * C * KTr * L,
-            bytes_accessed=A.size * A.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(A, x)
+        out_shape=jax.ShapeDtypeStruct((nl_t, KTr), A.dtype),
+        grid=(nl_t, pl.cdiv(KTr, R)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=3),
+        interpret=interpret,
+        name="near_panel_contract",
+    )(ptr, pidx, A, xq)
 
 
-def _use_pallas(dtype):
-    """Pallas path only on a real TPU backend and in f32 (the TPU
-    custom-call has no X64 lowering; f64 runs are CPU accuracy tests)."""
-    try:
-        return (
-            jax.default_backend() == "tpu"
-            and jnp.dtype(dtype) == jnp.float32
-        )
-    except Exception:  # pragma: no cover
-        return False
+def _contract_xla(A, pidx, chunk_tgt, ql, nl_t):
+    """Plain XLA near field: charge gather, batched contraction, sorted
+    segment-sum of each leaf's chunks (the reference the kernel is
+    tested against)."""
+    C, KTr, Lb = A.shape
+    m0 = pidx.shape[1]
+    KSc = ql.shape[1]
+    xq = jnp.concatenate([ql, jnp.zeros((1, KSc), ql.dtype)], axis=0)
+    xb = xq[pidx].reshape(C, m0 * KSc)
+    if Lb > m0 * KSc:
+        xb = jnp.pad(xb, ((0, 0), (0, Lb - m0 * KSc)))
+    out = jnp.einsum("lts,ls->lt", A, xb)
+    # chunks are leaf-sorted; dummies map to the dropped tail segment
+    seg = jax.ops.segment_sum(
+        out, chunk_tgt, num_segments=nl_t + 1, indices_are_sorted=True,
+    )
+    return seg[:nl_t]
 
 
-def panel_matvec(panels_dev, meta, ql, use_pallas=None):
+def panel_matvec(panels_dev, meta, ql, impl=None):
     """Near-field product from leaf-tiled charges.
 
     Parameters
@@ -677,39 +607,18 @@ def panel_matvec(panels_dev, meta, ql, use_pallas=None):
     panels_dev : dict from NearPanels.device() or the device builder.
     meta : the NearPanels (static chunk shapes).
     ql : [nl_src, KS*cdim] masked per-source-leaf charge tiles.
+    impl : "triton" or "xla" to force one implementation; by default
+        the Pallas kernel runs where the computation is lowered for a
+        CUDA device and plain XLA everywhere else.
     Returns [nl_t, KT*rdim] leaf result tiles in leaf-slot order.
     """
-    if use_pallas is None:
-        use_pallas = _use_pallas(ql.dtype)
-    A = panels_dev["A"]
-    pidx = panels_dev["pidx"]
-    chunk_tgt = panels_dev["chunk_tgt"]
-    C, KTr, Lb = A.shape
-    m0 = pidx.shape[1]
-    KSc = meta.KS * meta.cdim
-    if use_pallas:
-        # shrink the grid block until the resident buffers (leaf
-        # accumulator + charge table + double-buffered panel blocks)
-        # fit VMEM — any power-of-two divisor of block_rows still
-        # divides the padded chunk count
-        bl = meta.block_rows
-        while bl >= 8 and not _fused_fits(A, ql, meta, bl):
-            bl //= 2
-        if bl >= 8 and _fused_fits(A, ql, meta, bl):
-            return _contract_pallas_fused(
-                A, pidx, chunk_tgt, ql, meta, bl
-            )
-    xq = jnp.concatenate([ql, jnp.zeros((1, KSc), ql.dtype)], axis=0)
-    xb = xq[pidx].reshape(C, m0 * KSc)
-    if Lb > m0 * KSc:
-        xb = jnp.pad(xb, ((0, 0), (0, Lb - m0 * KSc)))
-    if use_pallas:
-        out = _contract_pallas(A, xb, meta.block_rows)
-    else:
-        out = _contract_einsum(A, xb)
-    # chunks are leaf-sorted; dummies map to the dropped tail segment
-    seg = jax.ops.segment_sum(
-        out, chunk_tgt, num_segments=meta.nl_t + 1,
-        indices_are_sorted=True,
+    args = (panels_dev["A"], panels_dev["pidx"], panels_dev["chunk_tgt"],
+            ql)
+    contract = {"triton": _contract_triton, "xla": _contract_xla}
+    if impl is not None:
+        return contract[impl](*args, meta.nl_t)
+    return jax.lax.platform_dependent(
+        *args,
+        cuda=lambda *a: _contract_triton(*a, meta.nl_t),
+        default=lambda *a: _contract_xla(*a, meta.nl_t),
     )
-    return seg[: meta.nl_t]

@@ -1,8 +1,8 @@
-"""Locally-essential-tree (LET) multi-chip FMM: explicit Morton-range
+"""Locally-essential-tree (LET) multi-device FMM: explicit Morton-range
 domain decomposition with shard_map collectives.
 
 The reference parallelises with OpenMP loops over shared-memory lists
-(EvalInteractionLazy.hpp:242-300); its TPU-native replacement (SURVEY.md
+(EvalInteractionLazy.hpp:242-300); its replacement here (SURVEY.md
 §5.8) distributes the FMM itself over a device mesh:
 
 ownership
@@ -48,6 +48,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from fmm_bem_tpu.executor.plan import l2l_level, m2m_level
 from fmm_bem_tpu.ops.bucket_sum import DEFAULT_EDGES as BS_EDGES
 
 
@@ -182,11 +183,12 @@ class LetPlan:
     plan : FmmPlan (single-tree).
     ndev_or_mesh : device count (1-D mesh built from jax.devices()), a
         1-D jax.sharding.Mesh, or a 2-D Mesh ``(outer, inner)`` for
-        two-level ICI x DCN topologies (SURVEY.md §5.8): the inner axis
-        is an ICI domain (one host's chips), the outer axis crosses
-        hosts over DCN.  Morton ranges are laid out so the flattened
-        device order is (outer-major, inner-minor) — neighbouring
-        ranges share an ICI domain — and the multipole/charge halos are
+        multi-node layouts (SURVEY.md §5.8): the inner axis spans the
+        devices of one node, the outer axis crosses nodes over the
+        slower inter-node network.  Morton ranges are laid out so the
+        flattened device order is (outer-major, inner-minor) —
+        neighbouring ranges share a node — and the multipole/charge
+        halos are
         exchanged hierarchically: intra-group exports ride ONLY the
         inner axis, and the cross-group all_gather carries only the
         boxes some other group actually imports.
@@ -195,7 +197,7 @@ class LetPlan:
     """
 
     AXIS = "sp"
-    AXIS_DCN = "dp"
+    AXIS_OUTER = "dp"
 
     def __init__(self, plan, ndev_or_mesh, flipped=False):
         assert not plan.dual, "LET sharding: single-tree plans only"
@@ -207,13 +209,13 @@ class LetPlan:
             self.mesh = Mesh(np.array(devs), (self.AXIS,))
         axes = self.mesh.axis_names
         if len(axes) == 2:
-            self.AXIS_DCN, self.AXIS = axes
-            self.ndcn = int(self.mesh.shape[self.AXIS_DCN])
+            self.AXIS_OUTER, self.AXIS = axes
+            self.nouter = int(self.mesh.shape[self.AXIS_OUTER])
             self.nsp = int(self.mesh.shape[self.AXIS])
-            self.ndev = self.ndcn * self.nsp
+            self.ndev = self.nouter * self.nsp
         else:
             (self.AXIS,) = axes
-            self.ndcn = 1
+            self.nouter = 1
             self.nsp = int(self.mesh.shape[self.AXIS])
             self.ndev = self.nsp
         #: flattened-device -> outer-group id (outer-major order)
@@ -227,7 +229,6 @@ class LetPlan:
         self._build_near()
         self._build_body_tables()
         self._fn_cache = {}
-        self._op_cache = {}
 
     # ------------------------------------------------------------------
     def _partition(self):
@@ -372,9 +373,10 @@ class LetPlan:
         self.m_import_pos = _pad_stack(
             imp_pos, nd * self.n_bexp_max, np.int32, min_len=self.n_imp_max
         )
-        if self.ndcn > 1:
+        if self.nouter > 1:
             # two-level mesh: hierarchical multipole halo (intra-group
-            # over the ICI axis; only cross-group boxes over DCN)
+            # over the intra-node axis; only cross-group boxes cross
+            # nodes)
             (
                 self.m_exp_intra,
                 self.m_exp_inter,
@@ -388,63 +390,56 @@ class LetPlan:
                 self.ZERO,
             )
 
-        # M2M / L2L class lists.  local: children owned by d (parent is
-        # then owned-by-d or shared).  shared: child and parent shared.
-        side = plan.src
+        # M2M / L2L level lists in the plan's batched layout
+        # (_TreeSide.level_groups: each parent with its eight octant
+        # children, one matmul per level).  local: children owned by d
+        # (the parent is then owned by d or shared); shared: child and
+        # parent shared.  A child outside the list reads the ZERO row; a
+        # pad parent writes the SINK row.
         self.num_levels = tree.num_levels
-        loc_up, shr_up = [], []
-        for lvl in range(1, tree.num_levels):
-            per_class = side.levels[lvl - 1]
-            lc, sc = [], []
-            for c in range(8):
-                e = per_class[c]
-                if e is None:
-                    lc.append(None)
-                    sc.append(None)
-                    continue
-                ch, pa, mi = e[0], tree.box_parent[e[0]], e[2]
-                own = self.box_owner[ch]
-                sh_sel = own < 0
-                if sh_sel.any():
-                    sc.append(
-                        (
-                            g2l[0, ch[sh_sel]],
-                            g2l[0, pa[sh_sel]],
-                            mi,
-                        )
-                    )
-                else:
-                    sc.append(None)
-                per_dev_ch, per_dev_pa = [], []
-                any_local = False
-                for d in range(nd):
-                    sel = own == d
-                    per_dev_ch.append(g2l[d, ch[sel]])
-                    per_dev_pa.append(g2l[d, pa[sel]])
-                    any_local = any_local or sel.any()
-                if any_local:
-                    lc.append(
-                        (
-                            _pad_stack(per_dev_ch, self.ZERO, np.int32),
-                            _pad_stack(per_dev_pa, self.SINK, np.int32),
-                            mi,
-                        )
-                    )
-                else:
-                    lc.append(None)
-            loc_up.append(lc)
-            shr_up.append(sc)
-        self.levels_local = loc_up
-        self.levels_shared = shr_up
+        owner_ext = np.append(self.box_owner, -2)  # dummy child: nobody
+        loc, shr = [], []
+        for g in plan.src.level_groups:
+            if g is None:
+                loc.append(None)
+                shr.append(None)
+                continue
+            parents, kids = g[0], g[1]
+            kid_owner = owner_ext[kids]
+            kid_ids = np.minimum(kids, tree.num_boxes - 1)
+
+            def rows(dev, sel):
+                keep = sel.any(axis=1)
+                return (
+                    g2l[dev, parents[keep]],
+                    np.where(
+                        sel[keep], g2l[dev, kid_ids[keep]], self.ZERO
+                    ).astype(np.int32),
+                )
+
+            sh = rows(0, kid_owner == -1)
+            shr.append(sh if len(sh[0]) else None)
+            per = [rows(d, kid_owner == d) for d in range(nd)]
+            if any(len(r[0]) for r in per):
+                loc.append((
+                    _pad_stack([r[0] for r in per], self.SINK, np.int32),
+                    _pad_stack([r[1] for r in per], self.ZERO, np.int32),
+                ))
+            else:
+                loc.append(None)
+        #: per level: None or (parent rows, child rows [.., 8]); local
+        #: lists are [ndev, n(, 8)], shared ones [n(, 8)]
+        self.levels_local = loc
+        self.levels_shared = shr
 
     def _halo_split(self, imports, owner_of_item, row_of, exp_pad_row):
         """Two-level halo exchange tables (2-D mesh only).
 
         Splits each owner's export set into items imported only within
         its outer-mesh group (exchanged by an all_gather over the inner
-        ICI axis — per group, never touching DCN) and items some other
-        group imports (exchanged by one full-mesh all_gather whose DCN
-        hop carries ONLY these).  An item imported on both sides
+        intra-node axis — per group, never crossing nodes) and items
+        some other group imports (exchanged by one full-mesh all_gather
+        whose inter-node hop carries ONLY these).  An item imported on both sides
         appears in both tables.
 
         Parameters
@@ -683,7 +678,7 @@ class LetPlan:
             np.int32,
             min_len=self.n_limp_max,
         )
-        if self.ndcn > 1:
+        if self.nouter > 1:
             # two-level mesh: hierarchical charge-tile halo
             leaf_owner_full = np.full(nl, -1, np.int64)
             leaf_owner_full[:] = leaf_owner
@@ -714,88 +709,36 @@ class LetPlan:
         self._near_variant_cache = {}
 
     def _near_panels_local(self, tgt_fields_host):
-        """Per-device NearPanels (device dicts + metas), built with the
-        refactored builders in ops/near_panel.py using local target/
-        source renumbering."""
+        """The near panels of every device as one stacked dict sharded
+        over the mesh (``A`` [ndev, C, KTr, Lb], ``pidx``, ``chunk_tgt``)
+        and device 0's NearPanels meta; built with the builders of
+        ops/near_panel.py under local target/source renumbering."""
         plan = self.plan
-        nd = self.ndev
         key = np.asarray(tgt_fields_host.get("bc", np.zeros(0))).tobytes()
         if key in self._near_variant_cache:
             return self._near_variant_cache[key]
-        from fmm_bem_tpu.ops.near_panel import (
-            build_near_panels,
-            build_near_panels_on_device,
-        )
+        from fmm_bem_tpu.ops.near_panel import choose_m0
 
-        pp_s, pp_t = plan.p2p_src_slot, plan.p2p_tgt_slot
-        rows, cols = plan.near_rows, plan.near_cols
         bc = np.asarray(tgt_fields_host.get("bc", np.zeros(0)))
         vsel = plan.kernel.near_select(
-            plan.near_vals, bc[rows] if len(bc) else None
+            plan.near_vals, bc[plan.near_rows] if len(bc) else None
         )
-        t_slot_of_body = plan.tgt.box_to_slot[plan.tgt.tree.body_leaf]
-
         # one chunk width for ALL devices (panels stack to one shape);
         # a target leaf belongs to exactly one device, so the global
         # per-leaf pair counts are exactly the union of the per-device
         # ones
-        from fmm_bem_tpu.ops.near_panel import choose_m0
-
         m_per_global = np.bincount(
-            np.asarray(pp_t), minlength=len(plan.tgt.leaf_ids)
+            np.asarray(plan.p2p_tgt_slot), minlength=len(plan.tgt.leaf_ids)
         )
         m0 = choose_m0(m_per_global, self.K * self.cdim)
 
         devs, metas = [], []
-        for d in range(nd):
-            psel = self.pair_dev == d
-            ss_d = pp_s[psel]
-            ts_d = pp_t[psel]
-            # entries whose target body lies in an owned target leaf of
-            # a pair assigned to d: filter by the pair's device through
-            # the (tgt leaf, src leaf) key
-            tgt_set = np.zeros(len(plan.tgt.leaf_ids) + 1, bool)
-            # a target leaf can appear in pairs of exactly one device
-            tgt_set[ts_d] = True
-            esel = tgt_set[t_slot_of_body[rows]]
-            tgl = self.leaf_g2l(d).astype(np.int64)
-            if getattr(plan, "_device_near", False):
-                dev, meta = build_near_panels_on_device(
-                    ss_d,
-                    ts_d,
-                    plan.src,
-                    plan.tgt,
-                    self.nl_max,
-                    plan._near_blocks_fn(tgt_fields_host),
-                    corr=(rows[esel], cols[esel], vsel[esel]),
-                    rdim=self.rdim,
-                    cdim=self.cdim,
-                    m0=m0,
-                    dtype=self.dtype,
-                    jit_cache=plan.__dict__.setdefault(
-                        "_panel_jit_cache", {}
-                    ),
-                    tgt_slot_local=tgl,
-                    src_slot_local=self.src_l2c[d].astype(np.int64),
-                    nl_src_local=self.n_ctab - 1,
-                )
-            else:
-                meta = build_near_panels(
-                    ss_d,
-                    ts_d,
-                    rows[esel],
-                    cols[esel],
-                    vsel[esel],
-                    plan.src,
-                    plan.tgt,
-                    self.nl_max,
-                    m0=m0,
-                    dtype=np.dtype(self.dtype),
-                    tgt_slot_local=tgl,
-                    src_slot_local=self.src_l2c[d].astype(np.int64),
-                    nl_src_local=self.n_ctab - 1,
-                )
-                dev = meta.device(self.dtype)
+        for d, mesh_dev in enumerate(self.mesh.devices.flat):
+            # each device assembles its own store: no block passes
+            # through another device or the host
+            with jax.default_device(mesh_dev):
+                dev, meta = self._near_panels_dev(d, tgt_fields_host, m0,
+                                                  vsel)
             devs.append(dev)
             metas.append(meta)
 
@@ -803,35 +746,88 @@ class LetPlan:
         # to the max device count and stack with a leading device axis.
         # Dummy rows carry pidx = zero-charge column and chunk_tgt =
         # nl_max (the dropped tail segment of the segment-sum).
-        A_stk = jnp.asarray(
-            _pad_stack(
-                [np.asarray(dv["A"]) for dv in devs],
-                0.0,
-                np.dtype(self.dtype),
-            )
-        )
-        pidx_stk = jnp.asarray(
-            _pad_stack(
-                [np.asarray(dv["pidx"]) for dv in devs],
-                self.n_ctab - 1,
-                np.int32,
-            )
-        )
-        ct_stk = jnp.asarray(
-            _pad_stack(
-                [np.asarray(dv["chunk_tgt"]) for dv in devs],
-                self.nl_max,
-                np.int32,
-            )
-        )
-        out = {"A": A_stk, "pidx": pidx_stk, "chunk_tgt": ct_stk}
-        meta0 = metas[0]
-        self._near_variant_cache[key] = (out, meta0)
+        out = {
+            "A": self._stack_sharded([dv["A"] for dv in devs], 0.0,
+                                     self.dtype),
+            "pidx": self._stack_sharded([dv["pidx"] for dv in devs],
+                                        self.n_ctab - 1, jnp.int32),
+            "chunk_tgt": self._stack_sharded(
+                [dv["chunk_tgt"] for dv in devs], self.nl_max, jnp.int32
+            ),
+        }
+        self._near_variant_cache[key] = (out, metas[0])
         if len(self._near_variant_cache) > 4:
             self._near_variant_cache.pop(
                 next(iter(self._near_variant_cache))
             )
-        return out, meta0
+        return out, metas[0]
+
+    def _near_panels_dev(self, d, tgt_fields_host, m0, vsel):
+        """Device ``d``'s near panels (device dict, NearPanels meta),
+        built on the current default device."""
+        from fmm_bem_tpu.ops.near_panel import (
+            build_near_panels,
+            build_near_panels_on_device,
+        )
+
+        plan = self.plan
+        rows, cols = plan.near_rows, plan.near_cols
+        psel = self.pair_dev == d
+        ss_d = plan.p2p_src_slot[psel]
+        ts_d = plan.p2p_tgt_slot[psel]
+        # entries whose target body lies in an owned target leaf of a
+        # pair assigned to d (a target leaf appears in the pairs of
+        # exactly one device)
+        tgt_set = np.zeros(len(plan.tgt.leaf_ids) + 1, bool)
+        tgt_set[ts_d] = True
+        t_slot_of_body = plan.tgt.box_to_slot[plan.tgt.tree.body_leaf]
+        esel = tgt_set[t_slot_of_body[rows]]
+        local = dict(
+            tgt_slot_local=self.leaf_g2l(d).astype(np.int64),
+            src_slot_local=self.src_l2c[d].astype(np.int64),
+            nl_src_local=self.n_ctab - 1,
+        )
+        if getattr(plan, "_device_near", False):
+            return build_near_panels_on_device(
+                ss_d, ts_d, plan.src, plan.tgt, self.nl_max,
+                plan._near_blocks_fn(tgt_fields_host),
+                corr=(rows[esel], cols[esel], vsel[esel]),
+                rdim=self.rdim, cdim=self.cdim, m0=m0, dtype=self.dtype,
+                jit_cache=plan.__dict__.setdefault("_panel_jit_cache", {}),
+                **local,
+            )
+        meta = build_near_panels(
+            ss_d, ts_d, rows[esel], cols[esel], vsel[esel],
+            plan.src, plan.tgt, self.nl_max, m0=m0,
+            dtype=np.dtype(self.dtype), **local,
+        )
+        return meta.device(self.dtype), meta
+
+    def _sharding(self):
+        """Sharding of a stacked [ndev, ...] table: its leading axis over
+        the mesh (over both axes, outer-major, on a 2-D mesh)."""
+        spec = (P((self.AXIS_OUTER, self.AXIS)) if self.nouter > 1
+                else P(self.AXIS))
+        return NamedSharding(self.mesh, spec)
+
+    def _stack_sharded(self, per_dev, fill, dtype):
+        """Per-device arrays, each on its mesh device, padded to one
+        shape and joined into one [ndev, ...] array sharded over the
+        mesh, without moving any block off its device."""
+        shape = tuple(
+            max([1 if ax == 0 else 0] + [a.shape[ax] for a in per_dev])
+            for ax in range(per_dev[0].ndim)
+        )
+        blocks = []
+        for mesh_dev, a in zip(self.mesh.devices.flat, per_dev):
+            pad = [(0, s - n) for s, n in zip(shape, a.shape)]
+            with jax.default_device(mesh_dev):
+                blk = jnp.pad(jnp.asarray(a, dtype), pad,
+                              constant_values=fill)[None]
+            blocks.append(jax.device_put(blk, mesh_dev))
+        return jax.make_array_from_single_device_arrays(
+            (len(per_dev),) + shape, self._sharding(), blocks
+        )
 
     def _build_body_tables(self):
         plan = self.plan
@@ -906,14 +902,6 @@ class LetPlan:
     def _operand(self, p, tgt_fields_host=None):
         plan = self.plan
         nd = self.ndev
-        key = (
-            int(p),
-            None
-            if tgt_fields_host is None
-            else np.asarray(tgt_fields_host["bc"]).tobytes(),
-        )
-        if key in self._op_cache:
-            return self._op_cache[key]
         dt = self.dtype
         tfh = (
             tgt_fields_host
@@ -924,22 +912,19 @@ class LetPlan:
                 else plan.src.fields
             )
         )
-        aux = plan.variant_aux(
+        # the body tables only: the near field is built per device
+        aux = plan.body_tables(
             p,
             src_host=tfh if (self.flipped or tgt_fields_host) else None,
             tgt_host=tfh if (self.flipped or tgt_fields_host) else None,
         )
         kern = plan.kernel
-        W = kern.width(min(int(p), plan.config.max_p))
-        cW = kern.ncomp * W
+        p_eff = min(int(p), plan.config.max_p)
+        cW = kern.ncomp * kern.width(p_eff)
 
         d = {
-            "m2m_mats": jnp.asarray(
-                plan._slice_mats(plan.src.m2m_mats, p), dt
-            ),
-            "l2l_mats": jnp.asarray(
-                plan._slice_mats(plan.tgt.l2l_mats, p), dt
-            ),
+            "m2m_lvl_mats": plan._level_mats(plan.src, "m2m", p_eff),
+            "l2l_lvl_mats": plan._level_mats(plan.tgt, "l2l", p_eff),
             "m2l_mats": jnp.asarray(
                 plan._slice_mats(plan.m2l_classes.mats, p), dt
             ),
@@ -956,7 +941,7 @@ class LetPlan:
             "q_export_rows": jnp.asarray(self.q_export_rows),
             "q_import_pos": jnp.asarray(self.q_import_pos),
         }
-        if self.ndcn > 1:
+        if self.nouter > 1:
             d["m_exp_intra"] = jnp.asarray(self.m_exp_intra)
             d["m_exp_inter"] = jnp.asarray(self.m_exp_inter)
             d["m_import_pos"] = jnp.asarray(self.m_import_pos2)
@@ -992,14 +977,14 @@ class LetPlan:
             # per-device body field arrays (kernel operator inputs)
             d["fields"] = {
                 k: jnp.asarray(self._body_slice(np.asarray(v)), dt)
-                for k, v in plan.src.fields.items()
+                for k, v in tfh.items()
                 if k != "vertices"
             }
         if self.use_p2p:
             # per-device source-leaf FIELD tiles over the charge-table
             # columns [own | import | zero]
             sf_tiles = {}
-            for k, v in plan.src.fields.items():
+            for k, v in tfh.items():
                 if k == "vertices":
                     continue
                 v = np.asarray(v)
@@ -1064,7 +1049,7 @@ class LetPlan:
             # local target leaf tiles for p2p row fields (host gather:
             # per-device body slice indexed by its local leaf tiles)
             tlt = {}
-            for k, v in plan.src.fields.items():
+            for k, v in tfh.items():
                 if k == "vertices":
                     continue
                 v = np.asarray(v)
@@ -1103,14 +1088,11 @@ class LetPlan:
                 "fields",
                 {
                     k: jnp.asarray(self._body_slice(np.asarray(v)), dt)
-                    for k, v in plan.src.fields.items()
+                    for k, v in tfh.items()
                     if k != "vertices"
                 },
             )
-        self._op_cache[key] = (d, p, cW)
-        if len(self._op_cache) > 6:
-            self._op_cache.pop(next(iter(self._op_cache)))
-        return self._op_cache[key]
+        return d, p, cW
 
     # ------------------------------------------------------------------
     # the sharded matvec
@@ -1126,7 +1108,6 @@ class LetPlan:
         cdim, rdim = self.cdim, self.rdim
         ncomp = kern.ncomp
         W = cW // ncomp
-        from fmm_bem_tpu.executor.plan import apply_flat_trans
 
         # ---- 1. leaf charge tiles + halo all_gather (fires first; XLA
         # overlaps it with the local upward pass)
@@ -1139,13 +1120,13 @@ class LetPlan:
         ql_own_z = jnp.concatenate(
             [ql_own, jnp.zeros((1, K * cdim), dt)], axis=0
         )
-        if self.ndcn > 1:
-            # hierarchical halo: intra-group tiles ride the ICI axis
-            # only; the cross-group gather carries just the leaves some
+        if self.nouter > 1:
+            # hierarchical halo: intra-group tiles ride the intra-node
+            # axis only; the cross-group gather carries just the leaves some
             # other group imports
             gi = jax.lax.all_gather(ql_own_z[d["q_exp_intra"]], AX)
             ge = jax.lax.all_gather(
-                ql_own_z[d["q_exp_inter"]], (self.AXIS_DCN, AX)
+                ql_own_z[d["q_exp_inter"]], (self.AXIS_OUTER, AX)
             )
             gathered = jnp.concatenate(
                 [
@@ -1194,38 +1175,26 @@ class LetPlan:
         M = jnp.zeros((self.R, cW), dt).at[d["leaf_rows"]].add(leaf_M)
 
         for lvl in range(self.num_levels - 1, 0, -1):
-            for c in range(8):
-                e = self.levels_local[lvl - 1][c]
-                if e is None:
-                    continue
-                ch = d["lvl_loc"][lvl - 1][c][0]
-                pa = d["lvl_loc"][lvl - 1][c][1]
-                M = M.at[pa].add(
-                    apply_flat_trans(M[ch], d["m2m_mats"][e[2]], ncomp)
-                )
+            if d["lvl_loc"][lvl - 1] is not None:
+                pa, ch = d["lvl_loc"][lvl - 1]
+                M = m2m_level(M, pa, ch, d["m2m_lvl_mats"][lvl - 1], ncomp)
 
         # ---- 3./4. shared top: psum + replicated M2M
-        AX_ALL = (self.AXIS_DCN, AX) if self.ndcn > 1 else AX
+        AX_ALL = (self.AXIS_OUTER, AX) if self.nouter > 1 else AX
         if self.n_sh:
             sh = jax.lax.psum(M[: self.n_sh], AX_ALL)
             M = M.at[: self.n_sh].set(sh)
             for lvl in range(self.num_levels - 1, 0, -1):
-                for c in range(8):
-                    e = self.levels_shared[lvl - 1][c]
-                    if e is None:
-                        continue
-                    ch, pa, mi = e
-                    ch = d["lvl_sh"][lvl - 1][c][0]
-                    pa = d["lvl_sh"][lvl - 1][c][1]
-                    M = M.at[pa].add(
-                        apply_flat_trans(M[ch], d["m2m_mats"][mi], ncomp)
-                    )
+                if d["lvl_sh"][lvl - 1] is not None:
+                    pa, ch = d["lvl_sh"][lvl - 1]
+                    M = m2m_level(M, pa, ch, d["m2m_lvl_mats"][lvl - 1],
+                                  ncomp)
 
         # ---- 5. LET halo: export owned multipoles, import remote ones
-        if self.ndcn > 1:
+        if self.nouter > 1:
             gi = jax.lax.all_gather(M[d["m_exp_intra"]], AX)
             ge = jax.lax.all_gather(
-                M[d["m_exp_inter"]], (self.AXIS_DCN, AX)
+                M[d["m_exp_inter"]], (self.AXIS_OUTER, AX)
             )
             gm = jnp.concatenate(
                 [
@@ -1305,31 +1274,17 @@ class LetPlan:
 
         if plan.config.evaluator.value == "fmm":
             # ---- 8. shared L2L (replicated), then local L2L top-down
+            # the level lists carry M-table pad rows (ZERO/SINK beyond
+            # R_red); clamp them onto the L layout's zero-read and
+            # garbage-sink rows
             for lvl in range(1, self.num_levels):
-                for c in range(8):
-                    e = self.levels_shared[lvl - 1][c]
-                    if e is not None:
-                        ch = d["lvl_sh"][lvl - 1][c][0]
-                        pa = d["lvl_sh"][lvl - 1][c][1]
-                        L = L.at[ch].add(
-                            apply_flat_trans(
-                                L[pa], d["l2l_mats"][e[2]], ncomp
-                            )
-                        )
-                for c in range(8):
-                    e = self.levels_local[lvl - 1][c]
-                    if e is not None:
-                        ch = d["lvl_loc"][lvl - 1][c][0]
-                        pa = d["lvl_loc"][lvl - 1][c][1]
-                        # local lists carry M-table pad rows (ZERO/SINK
-                        # beyond R_red); clamp onto the L layout's
-                        # zero-read / garbage-sink rows
-                        L = L.at[jnp.minimum(ch, self.SINK_L)].add(
-                            apply_flat_trans(
-                                L[jnp.minimum(pa, self.ZERO_L)],
-                                d["l2l_mats"][e[2]],
-                                ncomp,
-                            )
+                U = d["l2l_lvl_mats"][lvl - 1]
+                for lists in (d["lvl_sh"], d["lvl_loc"]):
+                    if lists[lvl - 1] is not None:
+                        pa, ch = lists[lvl - 1]
+                        L = l2l_level(
+                            L, jnp.minimum(pa, self.ZERO_L),
+                            jnp.minimum(ch, self.SINK_L), U, ncomp,
                         )
 
             Lb = L[d["body_leaf_row"]]
@@ -1429,30 +1384,19 @@ class LetPlan:
         AX = self.AXIS
         nd = self.ndev
 
-        # stack level lists into device-indexed arrays inside the
-        # operand (shard_map needs uniform pytrees); shared lists are
+        # level lists go into the operand as device-indexed arrays
+        # (shard_map needs uniform pytrees); shared lists are
         # replicated per device for spec uniformity
-        lvl_loc, lvl_sh = [], []
-        for lvl in range(1, self.num_levels):
-            ll, ls = [], []
-            for c in range(8):
-                e = self.levels_local[lvl - 1][c]
-                ll.append(
-                    None
-                    if e is None
-                    else (jnp.asarray(e[0]), jnp.asarray(e[1]))
-                )
-                es = self.levels_shared[lvl - 1][c]
-                ls.append(
-                    None
-                    if es is None
-                    else (jnp.asarray(es[0]), jnp.asarray(es[1]))
-                )
-            lvl_loc.append(ll)
-            lvl_sh.append(ls)
+        def level_rows(levels):
+            return [
+                None if e is None
+                else (jnp.asarray(e[0]), jnp.asarray(e[1]))
+                for e in levels
+            ]
+
         dd = dict(d)
-        dd["lvl_loc"] = lvl_loc
-        dd["lvl_sh"] = lvl_sh
+        dd["lvl_loc"] = level_rows(self.levels_local)
+        dd["lvl_sh"] = level_rows(self.levels_shared)
 
         sharded_keys = {
             "m2l_src", "m2l_cls", "leaf_body_idx",
@@ -1469,9 +1413,7 @@ class LetPlan:
             "tgt_leaf_fields",
         }
 
-        # sharded leading axis: over both mesh axes on a 2-D mesh
-        # (flattened device order is outer-major)
-        SH = P((self.AXIS_DCN, AX)) if self.ndcn > 1 else P(AX)
+        SH = self._sharding().spec
 
         def spec_of(k):
             if k in ("lvl_loc",):
@@ -1487,6 +1429,12 @@ class LetPlan:
 
         in_specs = ({k: spec_of(k) for k in dd}, SH)
         out_specs = SH
+        # place the operand once: each device keeps only its own blocks
+        # (and the replicated tables) instead of a resharding per call
+        dd = jax.device_put(dd, jax.tree_util.tree_map(
+            lambda s: NamedSharding(self.mesh, s), in_specs[0],
+            is_leaf=lambda x: isinstance(x, P),
+        ))
         nb_max = self.nb_max
         cdim = self.cdim
 

@@ -1,7 +1,7 @@
-"""Multi-chip execution: Morton-range spatial sharding over a device mesh.
+"""Multi-device execution: Morton-range spatial sharding over a device mesh.
 
 The reference is single-node OpenMP (SURVEY.md §2.8) — this subsystem is
-new.  The TPU-native scaling axis for an FMM is *spatial decomposition*:
+new.  The natural scaling axis for an FMM is *spatial decomposition*:
 bodies are already Morton-sorted, so sharding every body-indexed array
 along its leading axis gives each device a contiguous Morton range (a
 compact spatial subdomain), and sharding the interaction-pair lists
@@ -41,17 +41,13 @@ def shard_plan_arrays(plan, p, mesh, axis="sp"):
 
     ndev = mesh.shape[axis]
 
-    def spec_for(name, arr):
+    def spec_for(arr):
         if not hasattr(arr, "shape") or arr.ndim == 0:
             return P()
         # body-indexed arrays: shard by Morton range (explicit shardings
         # need divisibility; replicate otherwise — pick N % ndev == 0
         # for production runs)
-        if (
-            arr.shape[0] == n
-            and arr.shape[0] % ndev == 0
-            and name not in ("m2m_mats", "l2l_mats")
-        ):
+        if arr.shape[0] == n and arr.shape[0] % ndev == 0:
             return P(axis, *([None] * (arr.ndim - 1)))
         return P()  # replicate box tables, matrices, small lists
 
@@ -62,11 +58,11 @@ def shard_plan_arrays(plan, p, mesh, axis="sp"):
             return jtu.tree_map(
                 lambda a: jax.device_put(a, NamedSharding(mesh, P())), v
             )
-        return jax.device_put(v, NamedSharding(mesh, spec_for(k, v)))
+        return jax.device_put(v, NamedSharding(mesh, spec_for(v)))
 
     out_d = {k: place(k, v) for k, v in d.items()}
     out_f = {
-        k: jax.device_put(v, NamedSharding(mesh, spec_for(k, v)))
+        k: jax.device_put(v, NamedSharding(mesh, spec_for(v)))
         for k, v in fields.items()
     }
     aux = plan.variant_aux(p)

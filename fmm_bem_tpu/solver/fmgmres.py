@@ -1,6 +1,6 @@
 """FMGMRES: inner-outer flexible GMRES with an FMM-GMRES preconditioner.
 
-TPU-native counterpart of examples/BEM/fmgmres.hpp (:1-60): the right
+JAX counterpart of examples/BEM/fmgmres.hpp (:1-60): the right
 preconditioner of a flexible outer GMRES is itself a (cheap, relaxed)
 GMRES solve against the same FMM operator — typically at a lower
 truncation order and a loose tolerance, so each outer iteration gets a

@@ -1,6 +1,6 @@
 """Preconditioners for the FMM-BEM Krylov solves.
 
-TPU-native counterparts of examples/BEM/Preconditioner.hpp (identity,
+JAX counterparts of examples/BEM/Preconditioner.hpp (identity,
 diagonal), BlockDiagonalPC.hpp (leaf-block solve) and LocalPC.hpp
 (near-field inner solve).  Where the reference runs an inner 1-iteration
 GMRES against a near-field-only FMM plan, the array design solves the

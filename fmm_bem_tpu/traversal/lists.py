@@ -1,6 +1,6 @@
 """Dual-tree MAC traversal -> static interaction lists.
 
-TPU-native equivalent of the reference's lazy evaluator constructor
+JAX equivalent of the reference's lazy evaluator constructor
 (include/executor/EvalInteractionLazy.hpp:79-231 and
 EvalInteraction.hpp:20-89): one host-side traversal materialises
 charge-independent call lists that the device executor replays every

@@ -1,6 +1,6 @@
 """Vectorised 3-D Morton (Z-order) coding.
 
-TPU-native equivalent of the reference MortonCoder
+JAX equivalent of the reference MortonCoder
 (include/tree/Octree.hpp:82-188): 10 bits per axis interleaved into a
 30-bit code.  The reference spreads bits scalar-at-a-time; here the same
 magic-mask spreading runs vectorised over whole numpy/jax arrays.

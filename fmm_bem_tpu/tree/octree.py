@@ -1,6 +1,6 @@
 """Adaptive Morton octree as a structure-of-arrays.
 
-TPU-native re-design of the reference Octree (include/tree/Octree.hpp):
+JAX re-design of the reference Octree (include/tree/Octree.hpp):
 instead of proxy Box/Body objects over a ``box_data`` array, the tree is
 a set of flat numpy arrays built once on the host.  Bodies are argsorted
 by full-depth Morton code (equivalent to the reference's per-box MSD

@@ -1,6 +1,6 @@
 """Phase metrics and structured timing.
 
-TPU-native counterpart of the reference's Logger (include/Logger.hpp:
+JAX counterpart of the reference's Logger (include/Logger.hpp:
 49-113 — a map of event -> {hits, total time} printed at exit) and the
 scattered get_time() prints (EvalInteractionLazy.hpp:137-152 per-matvec
 "P2P: Xs, M2L(n): Ys").  Here phases are explicit context managers, the

@@ -1,7 +1,7 @@
 // Native host-side runtime for fmm_bem_tpu.
 //
 // C++ implementations of the plan-build hot paths that run on the host
-// CPU (the TPU executes the compiled matvec; these feed it):
+// CPU (the accelerator executes the compiled matvec; these feed it):
 //   - Morton octree construction        (counterpart of include/tree/Octree.hpp)
 //   - dual-tree MAC traversal           (counterpart of executor/EvalInteraction*.hpp)
 //   - near-field COO index expansion    (counterpart of EvalP2P.hpp to_matrix indexing)

@@ -308,7 +308,7 @@ def test_fmgmres_on_stokes_bem_reduces_outer_iterations(stokes_plan64):
 
 # ----------------------------------------------------------------------
 # Krylov-state checkpoint / resume (SURVEY.md §5.4; no reference
-# counterpart — subsystem required of the TPU build)
+# counterpart)
 # ----------------------------------------------------------------------
 import dataclasses as _dc
 import os as _os

@@ -1,6 +1,9 @@
-"""Tests for the TPU-native executor ops: bucketed leaf-panel near
-field (ops/near_panel.py) and scatter-free gather-sum reductions
-(ops/bucket_sum.py), including the Pallas kernel in interpreter mode."""
+"""Tests for the executor ops: the leaf-panel near field
+(ops/near_panel.py, both the plain XLA contraction and the Pallas
+kernel in interpreter mode) and scatter-free gather-sum reductions
+(ops/bucket_sum.py)."""
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -93,38 +96,135 @@ def test_linear_tables_match_runtime_ops():
     assert np.allclose(oa, ob, atol=1e-11)
 
 
-def test_panel_pallas_interpret_matches_einsum():
-    """The Pallas near-panel kernel (run in interpreter mode on CPU)
-    computes the same contraction as the XLA einsum path."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+def _random_chunks(rng, chunks_per_leaf, n_dummy, nq, KTr, KSc, m0):
+    """Leaf-sorted chunk store in the NearPanels layout: leaf l owns
+    chunks_per_leaf[l] consecutive chunks, then n_dummy padding chunks
+    (target nl_t, source leaves nq)."""
+    nl_t = len(chunks_per_leaf)
+    Lb = -(-m0 * KSc // 128) * 128
+    ct = np.concatenate([
+        np.repeat(np.arange(nl_t), chunks_per_leaf), np.full(n_dummy, nl_t)
+    ]).astype(np.int32)
+    C = len(ct)
+    pidx = rng.integers(0, nq + 1, (C, m0)).astype(np.int32)
+    pidx[ct == nl_t] = nq
+    A = rng.standard_normal((C, KTr, Lb))
+    A[:, :, m0 * KSc:] = 0.0
+    ql = rng.standard_normal((nq, KSc))
+    return A, pidx, ct, ql, nl_t
 
+
+def _near_reference(A, pidx, ct, ql, nl_t):
+    """Dense per-chunk loop: out[t] += A[c] @ [ql[pidx[c, 0]], ...]."""
+    C, KTr, _ = A.shape
+    m0 = pidx.shape[1]
+    xq = np.concatenate([ql, np.zeros((1, ql.shape[1]))])
+    out = np.zeros((nl_t, KTr))
+    for c in range(C):
+        if ct[c] < nl_t:
+            x = np.concatenate([xq[j] for j in pidx[c]])
+            out[ct[c]] += A[c, :, : m0 * ql.shape[1]] @ x
+    return out
+
+
+NEAR_CASES = {
+    # (chunks per target leaf, dummy chunks, source leaves, KTr, KSc, m0)
+    "m0_1": ([1, 2, 0, 3], 2, 6, 16, 16, 1),
+    "m0_2": ([2, 1, 3], 1, 5, 64, 64, 2),
+    "dummies_only_tail": ([1, 1], 7, 3, 8, 8, 4),
+    "leaf_spans_many_chunks": ([1, 19, 2], 3, 9, 32, 32, 2),
+    "stokes_widths": ([2, 0, 3], 2, 5, 3 * 16, 3 * 16, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEAR_CASES))
+@pytest.mark.parametrize("impl", ["xla", "triton"])
+def test_near_contract_matches_dense_loop(case, impl):
+    """Both near-field implementations (the Pallas kernel in interpret
+    mode) against a dense per-chunk numpy loop."""
     from fmm_bem_tpu.ops import near_panel as npnl
 
-    rng = np.random.default_rng(4)
-    nl_b, KTr, L = 16, 8, 256
-    A = jnp.asarray(rng.standard_normal((nl_b, KTr, L)), jnp.float32)
-    x = jnp.asarray(rng.standard_normal((nl_b, L)), jnp.float32)
+    cpl, ndum, nq, KTr, KSc, m0 = NEAR_CASES[case]
+    A, pidx, ct, ql, nl_t = _random_chunks(
+        np.random.default_rng(4), cpl, ndum, nq, KTr, KSc, m0
+    )
+    ref = _near_reference(A, pidx, ct, ql, nl_t)
+    args = (jnp.asarray(A), jnp.asarray(pidx), jnp.asarray(ct),
+            jnp.asarray(ql), nl_t)
+    if impl == "triton":
+        got = npnl._contract_triton(*args, interpret=True)
+    else:
+        got = npnl._contract_xla(*args)
+    assert got.shape == (nl_t, KTr)
+    assert np.allclose(np.asarray(got), ref, rtol=1e-12, atol=1e-12)
 
-    ref = npnl._contract_einsum(A, x)
 
-    bl = npnl.LEAF_TILE
+def _plan_near_inputs(plan, seed):
+    panels, meta = plan.near_panels()
+    nl_s, K = plan.src.leaf_body_mask.shape
+    cdim = getattr(plan.kernel, "charge_dim", 1)
+    rng = np.random.default_rng(seed)
+    ql = rng.standard_normal((nl_s, K, cdim)) * \
+        plan.src.leaf_body_mask[..., None]
+    return panels, meta, jnp.asarray(ql.reshape(nl_s, K * cdim))
 
-    def kern(a_ref, x_ref, o_ref):
-        o_ref[:] = jnp.sum(a_ref[:] * x_ref[:][:, None, :], axis=2)
 
-    got = pl.pallas_call(
-        kern,
-        grid=(nl_b // bl,),
-        in_specs=[
-            pl.BlockSpec((bl, KTr, L), lambda i: (i, 0, 0)),
-            pl.BlockSpec((bl, L), lambda i: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec((bl, KTr), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((nl_b, KTr), A.dtype),
-        interpret=True,
-    )(A, x)
-    assert np.allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
+def test_near_kernel_on_plan_panels(stokes_plan64):
+    """The kernel (interpret mode) against plain XLA on real panel
+    stores: the Laplace sphere and the Stokes (3x3-block) sphere."""
+    from fmm_bem_tpu.ops import near_panel as npnl
+
+    tris = unit_sphere(3)
+    lap = FmmPlan(LaplaceBEMKernel(K=3), make_panels(tris, K=3),
+                  FMMConfig(ncrit=16, dtype="float64", max_p=6))
+    for plan in (lap, stokes_plan64[3]):
+        panels, meta, ql = _plan_near_inputs(plan, 5)
+        args = (panels["A"], panels["pidx"], panels["chunk_tgt"], ql,
+                meta.nl_t)
+        ref = np.asarray(npnl._contract_xla(*args))
+        got = np.asarray(npnl._contract_triton(*args, interpret=True))
+        assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.gpu
+def test_near_kernel_compiled_matches_xla(gpu):
+    """The kernel as compiled for the card against plain XLA on the
+    same device (chip_smoke.py repeats this on the 131k-panel store)."""
+    from fmm_bem_tpu.ops import near_panel as npnl
+
+    A, pidx, ct, ql, nl_t = _random_chunks(
+        np.random.default_rng(7), [3, 0, 19, 2], 3, 9, 64, 64, 2
+    )
+    args = [jax.device_put(a, gpu) for a in (
+        jnp.asarray(A, jnp.float32), jnp.asarray(pidx), jnp.asarray(ct),
+        jnp.asarray(ql, jnp.float32),
+    )]
+    got = jax.jit(npnl._contract_triton, static_argnums=4)(*args, nl_t)
+    ref = jax.jit(npnl._contract_xla, static_argnums=4)(*args, nl_t)
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_panel_matvec_kernel_choice():
+    """panel_matvec lowers the Pallas kernel for a CUDA device and only
+    the plain XLA contraction for the CPU."""
+    from fmm_bem_tpu.ops import near_panel as npnl
+
+    A, pidx, ct, ql, nl_t = _random_chunks(
+        np.random.default_rng(6), [2, 1], 1, 3, 16, 16, 2
+    )
+    meta = types.SimpleNamespace(nl_t=nl_t)
+    panels = {"A": jnp.asarray(A, jnp.float32),
+              "pidx": jnp.asarray(pidx), "chunk_tgt": jnp.asarray(ct)}
+    f = jax.jit(lambda pn, q: npnl.panel_matvec(pn, meta, q))
+    traced = f.trace(panels, jnp.asarray(ql, jnp.float32))
+    cuda = traced.lower(lowering_platforms=("cuda",)).as_text()
+    cpu = traced.lower(lowering_platforms=("cpu",)).as_text()
+    assert "triton" in cuda
+    assert "triton" not in cpu
+    got = np.asarray(f(panels, jnp.asarray(ql, jnp.float32)))
+    assert np.allclose(got, _near_reference(A, pidx, ct, ql, nl_t),
+                       rtol=1e-4, atol=1e-4)
 
 
 def test_device_near_assembly_chunked_matches_one_shot():

@@ -123,6 +123,40 @@ def test_let_flipped_variant_matches(bem_plan_r3):
     assert np.abs(out - ref).max() < 1e-10
 
 
+def test_let_flipped_with_m2p_pairs():
+    """The BC-flipped operator on a tree with level-skewed (M2P) pairs:
+    the M2P pass must see the flipped fields, not the plan's own."""
+    tris = unit_sphere(5)
+    plan = FmmPlan(
+        LaplaceBEMKernel(K=3), make_panels(tris, K=3),
+        FMMConfig(ncrit=8, dtype="float64", max_p=5),
+    )
+    assert len(plan.m2p_src) > 0
+    q = np.random.default_rng(5).standard_normal(len(tris))
+    ref = np.asarray(plan.apply_flipped_bc(q, p=5))
+    out = LetPlan(plan, 4, flipped=True).apply(q, p=5)
+    assert np.abs(out - ref).max() < 1e-10 * np.abs(ref).max()
+
+
+def test_let_operand_blocks_stay_on_their_device(bem_plan_r3):
+    """The operand is placed once with the shard_map specs: every device
+    holds exactly its own block of the near store and of the body
+    tables, and the near store was assembled there."""
+    plan, n = bem_plan_r3
+    lp = LetPlan(plan, 4)
+    _, op4p = lp.solver_ops()
+    dd = op4p(5)
+    devices = set(jax.devices()[:4])
+    for arr in (dd["panels"]["A"], dd["panels"]["pidx"],
+                dd["leaf_body_idx"], dd["body_leaf_row"]):
+        shards = arr.addressable_shards
+        assert {s.device for s in shards} == devices
+        assert all(s.data.shape == (1,) + arr.shape[1:] for s in shards)
+    q = np.random.default_rng(4).standard_normal(n)
+    ref = np.asarray(plan.apply(q, p=5))
+    assert np.abs(lp.apply(q, p=5) - ref).max() < 1e-10
+
+
 def test_let_full_solve_matches_single_device(bem_plan_r4):
     """Distributed second-kind BEM solve == single-device solve: the
     whole Krylov iteration runs on sharded state with the LET matvec."""
@@ -150,17 +184,18 @@ def test_let_full_solve_matches_single_device(bem_plan_r4):
     assert np.abs(x_let - np.asarray(x_ref)).max() < 1e-5
 
 
-def _mesh2d(ndcn, nsp):
+def _mesh2d(nouter, nsp):
     from jax.sharding import Mesh
 
-    devs = np.array(jax.devices()[: ndcn * nsp]).reshape(ndcn, nsp)
+    devs = np.array(jax.devices()[: nouter * nsp]).reshape(nouter, nsp)
     return Mesh(devs, ("dp", "sp"))
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
 def test_let_two_level_mesh_matches(shape):
-    """2-D (DCN x ICI) mesh: hierarchical halo exchange must reproduce
-    the single-device matvec exactly (SURVEY.md §5.8 two-level LET)."""
+    """2-D (inter-node x intra-node) mesh: hierarchical halo exchange
+    must reproduce the single-device matvec exactly (SURVEY.md §5.8
+    two-level LET)."""
     tris = unit_sphere(4)
     fields = make_panels(tris, K=3)
     plan = FmmPlan(
@@ -170,7 +205,7 @@ def test_let_two_level_mesh_matches(shape):
     q = np.random.default_rng(3).standard_normal(len(tris))
     ref = np.asarray(plan.apply(q, p=8))
     lp = LetPlan(plan, _mesh2d(*shape))
-    assert lp.ndcn == shape[0] and lp.nsp == shape[1]
+    assert lp.nouter == shape[0] and lp.nsp == shape[1]
     out = lp.apply(q, p=8)
     assert np.abs(out - ref).max() < 1e-10
 
@@ -203,7 +238,8 @@ def test_let_two_level_flipped_and_point():
 def test_let_two_level_collectives_per_axis():
     """Per-axis HLO bound: no collective on EITHER axis of the 2-D mesh
     may reach the sharded panel-state scale, and the cross-group
-    (DCN) exports must not exceed the intra-group halo volume."""
+    (inter-node) exports must not exceed the intra-group halo
+    volume."""
     tris = unit_sphere(4)
     fields = make_panels(tris, K=3)
     plan = FmmPlan(
@@ -223,8 +259,8 @@ def test_let_two_level_collectives_per_axis():
     coll, desc = max_collective_bytes_hlo(txt, 8)
     assert coll > 0, "expected explicit collectives in the LET matvec"
     assert coll < panel_bytes, (coll, desc, panel_bytes)
-    # the halo split must actually shrink the DCN payload: inter-group
-    # export tables are no larger than the full export tables
+    # the halo split must actually shrink the inter-node payload:
+    # inter-group export tables are no larger than the full ones
     assert lp.m_exp_inter.shape[1] <= lp.m_export_rows.shape[1]
     assert lp.q_exp_inter.shape[1] <= lp.q_export_rows.shape[1]
 

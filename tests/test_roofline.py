@@ -6,7 +6,10 @@ phase structure, non-negativity, and that the phases telescope to the
 measured pipeline total by construction.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
+import pytest
 
 from fmm_bem_tpu.bem.panels import make_panels
 from fmm_bem_tpu.bem.triangulation import unit_sphere
@@ -14,7 +17,9 @@ from fmm_bem_tpu.config import FMMConfig
 from fmm_bem_tpu.executor.plan import FmmPlan
 from fmm_bem_tpu.kernels.laplace_bem import LaplaceBEMKernel
 from fmm_bem_tpu.utils.roofline import (
+    CHIP_PEAKS,
     _pava_nondecreasing,
+    chip_peaks,
     phase_breakdown,
 )
 
@@ -44,7 +49,7 @@ def test_phase_breakdown_structure():
         FMMConfig(ncrit=16, dtype="float32", max_p=6),
     )
     out = phase_breakdown(
-        plan, 5, chain=4, iters=1, repeats=1, solo=True
+        plan, 5, chain=4, repeats=1, solo=True
     )
     for ph in ("p2m", "m2m", "m2l", "l2l", "l2p", "near"):
         assert ph in out, ph
@@ -67,7 +72,31 @@ def test_phase_breakdown_structure():
     # must demote to `unreliable` / attribution-floor markers instead
     for ph in ("p2m", "m2m", "m2l", "l2l", "l2p", "near"):
         r = out[ph]
-        assert r.get("pct_mxu", 0.0) <= 100.0
+        assert r.get("pct_f32", 0.0) <= 100.0
         assert r.get("pct_hbm", 0.0) <= 100.0
         if "unreliable" in r or "below_attribution_floor" in r:
-            assert "pct_hbm" not in r and "pct_mxu" not in r
+            assert "pct_hbm" not in r and "pct_f32" not in r
+        # the CPU has no roofline: no share is ever reported there
+        assert "pct_hbm" not in r and "pct_f32" not in r
+
+
+def test_chip_peaks_h100_row():
+    dev = SimpleNamespace(platform="gpu", device_kind="NVIDIA H100 80GB HBM3")
+    peaks = chip_peaks(dev)
+    assert peaks is CHIP_PEAKS["NVIDIA H100 80GB HBM3"]
+    # data-sheet figures: f32 outside the tensor cores, TF32, bf16, HBM
+    assert (peaks.f32, peaks.tf32, peaks.bf16, peaks.hbm) == (
+        67e12, 495e12, 989e12, 3.35e12,
+    )
+
+
+def test_chip_peaks_unknown_gpu_raises():
+    dev = SimpleNamespace(platform="gpu", device_kind="Unknown GPU 9000")
+    with pytest.raises(KeyError, match="Unknown GPU 9000"):
+        chip_peaks(dev)
+
+
+def test_chip_peaks_cpu_has_no_roofline():
+    assert chip_peaks() is None  # the test backend is the CPU
+    assert chip_peaks(SimpleNamespace(platform="cpu", device_kind="cpu")) \
+        is None
